@@ -1,21 +1,18 @@
-# Mirrors the reference's Makefile targets (build/test/perf/trace) for the
-# TPU-native framework. `make trace` is the analogue of the reference's
-# `make mactrace` (dotnet-trace -> speedscope): it writes a jax.profiler
-# trace viewable in TensorBoard/XProf.
+# Mirrors the reference's Makefile targets (build/test/perf).
 
 PYTHON ?= python
 
-.PHONY: test perf trace lint
+.PHONY: test perf smoke lint
 
 test:
 	$(PYTHON) -m pytest tests/ -q
 
+# Need an NVIDIA GPU.
 perf:
 	$(PYTHON) bench.py
 
-trace:
-	$(PYTHON) bench.py --profile /tmp/sdfkit_tpu_trace
-	@echo "trace written; view with: tensorboard --logdir /tmp/sdfkit_tpu_trace"
+smoke:
+	$(PYTHON) chip_smoke.py
 
 lint:
-	$(PYTHON) -m compileall -q sdfkit_tpu tests bench.py __graft_entry__.py
+	$(PYTHON) -m compileall -q sdfkit tests bench.py chip_smoke.py __graft_entry__.py

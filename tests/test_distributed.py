@@ -1,4 +1,4 @@
-"""The multi-process `jax.distributed` coordinator path (VERDICT r2 item 5).
+"""The multi-process `jax.distributed` coordinator path.
 
 Everything else in the suite runs single-process on virtual devices; this
 test actually spawns two local CPU processes that rendezvous on a localhost
@@ -40,7 +40,7 @@ def test_two_process_coordinator_psum_and_render():
 
 @pytest.mark.skipif(not _can_spawn(), reason="subprocesses unavailable")
 def test_four_process_coordinator_psum_and_render():
-    """>=4 processes on one localhost coordinator (VERDICT r3 item 8): the
+    """>=4 processes on one localhost coordinator: the
     same wiring a real pod-slice run uses via
     ``tools/scaling.py --coordinator`` — multi-host readiness is tested,
     only the DCN fabric is simulated by localhost."""

@@ -7,8 +7,8 @@ import pytest
 import jax
 from jax.sharding import Mesh
 
-import sdfkit_tpu as sk
-from sdfkit_tpu.parallel.elastic import render_tiles_resumable
+import sdfkit as sk
+from sdfkit.parallel.elastic import render_tiles_resumable
 
 
 def scene():

@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import sdfkit_tpu as sk
-from sdfkit_tpu.utils.v3 import V3, vmod
+import sdfkit as sk
+from sdfkit.utils.v3 import V3, vmod
 
 
 def eval_at(expr, points):
@@ -279,7 +279,7 @@ class TestRepeatIndexedColor:
         # Same scene through the static color_fn path: colors must agree.
         table = self._palette()
         s_ix = sk.sphere(0.4).repeat_indexed("xy", (1.0, 1.0), table)
-        from sdfkit_tpu.utils.v3 import V3
+        from sdfkit.utils.v3 import V3
 
         def color_fn(i, p, c, d):
             pos = i.x + i.y

@@ -5,8 +5,8 @@ known target, and orbax checkpoint/resume reproduces the uninterrupted run.
 import jax.numpy as jnp
 import numpy as np
 
-import sdfkit_tpu as sk
-from sdfkit_tpu.fit import fit
+import sdfkit as sk
+from sdfkit.fit import fit
 
 W, H = 24, 16
 
@@ -29,12 +29,12 @@ class TestFit:
         )
 
     def test_fused_backend_descends_like_jnp(self):
-        # backend='fused' routes every step through the Pallas forward +
-        # in-VMEM backward kernels (interpret mode here); a few steps must
+        # backend='interpret' routes every step through the forward and
+        # backward kernels (in the Pallas interpreter); a few steps must
         # track the jnp path closely.
         tgt = target_image()
         rj = fit(start_sdf(), tgt, steps=5, learning_rate=0.02, backend="jnp")
-        rf = fit(start_sdf(), tgt, steps=5, learning_rate=0.02, backend="fused")
+        rf = fit(start_sdf(), tgt, steps=5, learning_rate=0.02, backend="interpret")
         assert rf.losses[-1] < rf.losses[0]
         np.testing.assert_allclose(rf.losses, rj.losses, rtol=1e-3, atol=1e-5)
         np.testing.assert_allclose(
@@ -42,13 +42,13 @@ class TestFit:
         )
 
     def test_auto_backend_picks_jnp_on_cpu(self):
-        from sdfkit_tpu.fit import _pick_fit_backend
+        from sdfkit.render.pallas.raymarch_kernel import resolve_backend
 
-        assert _pick_fit_backend("auto", start_sdf()) == "jnp"  # cpu tests
+        assert resolve_backend("auto", start_sdf()) == "jnp"  # cpu tests
         import pytest
 
         with pytest.raises(ValueError, match="unknown backend"):
-            _pick_fit_backend("bogus", start_sdf())
+            fit(start_sdf(), target_image(), steps=1, backend="bogus")
 
     def test_progress_callback(self):
         seen = []
@@ -94,7 +94,7 @@ class TestFit:
 
 
 class TestFitSharded:
-    """fit(mesh=...) — the full multi-chip loop (VERDICT r2 item 4)."""
+    """fit(mesh=...) — the full multi-chip loop."""
 
     def _mesh(self, n=8):
         import jax
@@ -149,7 +149,7 @@ class TestFitSharded:
 
 
 class TestFitIndexedPalette:
-    """fit() optimizing a RepeatIndexedColor palette (VERDICT r4 item 4):
+    """fit() optimizing a RepeatIndexedColor palette:
     the per-cell color table is a data leaf, so the image loss drives the
     palette itself — impossible through the static color_fn closures."""
 
@@ -187,10 +187,10 @@ class TestFitIndexedPalette:
         tgt = np.asarray(sk.render(self._scene(target_table), W, H))
         start = self._scene(jnp.full((2, 3), 0.5))
         rj = fit(start, tgt, steps=4, learning_rate=0.03, backend="jnp")
-        rf = fit(start, tgt, steps=4, learning_rate=0.03, backend="fused")
-        # The repeated-sphere frame is mostly silhouette pixels, where
-        # interpret-mode FMA contraction drifts and compounds through the
-        # optimizer steps (see tests/test_goldens.py) — hence the looser
+        rf = fit(start, tgt, steps=4, learning_rate=0.03, backend="interpret")
+        # The repeated-sphere frame is mostly silhouette pixels, where the
+        # kernel's rounding drifts from the jnp path and compounds through
+        # the optimizer steps (see tests/test_goldens.py) — hence the looser
         # bound than the single-sphere fused-vs-jnp test above.
         np.testing.assert_allclose(rf.losses, rj.losses, rtol=3e-2, atol=1e-5)
         np.testing.assert_allclose(

@@ -12,8 +12,8 @@ import pathlib
 
 import numpy as np
 
-import sdfkit_tpu as sk
-from sdfkit_tpu.io.png import read_png
+import sdfkit as sk
+from sdfkit.io.png import read_png
 
 GOLDEN_DIR = pathlib.Path(__file__).parent / "goldens"
 
@@ -47,18 +47,17 @@ def test_sphere_repeat_rgb_golden():
     # run-to-run fp-contraction drift. The golden pins the jnp semantic
     # reference.
     np.testing.assert_allclose(img, golden, atol=5e-3)
-    # The fused kernel (the default backend) is a different PROGRAM: its
-    # in-kernel ray generation rounds differently and the 40-step march is
-    # chaotic on silhouette-grazing rays — a 1-ulp depth difference there
-    # flips hit/miss and the pixel differs by O(1), so a per-pixel allclose
-    # bound is the wrong contract (hardware data, BENCH_r05 fused_drift:
-    # max |diff| 0.21 at this resolution with 4/20736 pixels > 5e-2 and
-    # median 0). The right contract is distributional: almost every pixel
-    # matches tightly, and the handful of flipped silhouette pixels stay a
-    # vanishing fraction.
+    # The fused kernels (the default backend on a GPU) are a different
+    # PROGRAM: in-kernel ray generation rounds differently and the 40-step
+    # march is chaotic on silhouette-grazing rays — a 1-ulp depth difference
+    # there flips hit/miss and the pixel differs by O(1), so a per-pixel
+    # allclose bound is the wrong contract. The right contract is
+    # distributional: almost every pixel matches tightly, and the handful
+    # of flipped silhouette pixels stay a vanishing fraction (chip_smoke.py
+    # holds the compiled kernels to the same contract on the GPU).
     fused = np.asarray(
         sk.render(sphere_repeat_scene(), 192, 108,
-                  camera_position=(-2.0, 2.0, 4.0), backend="fused")
+                  camera_position=(-2.0, 2.0, 4.0), backend="interpret")
     )
     d = np.abs(np.clip(fused, 0.0, 1.0) - golden)
     per_px = d.max(axis=-1)

@@ -5,8 +5,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-import sdfkit_tpu as sk
-from sdfkit_tpu.ops.grid import cell_centers
+import sdfkit as sk
+from sdfkit.ops.grid import cell_centers
 
 
 class TestCellCenters:

@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sdfkit_tpu.registration.icp import (
+from sdfkit.registration.icp import (
     IterativeClosestPoint,
     NearestNeighbors,
     global_register_points,
@@ -151,7 +151,7 @@ class TestJaxIcp:
     numpy reference path plus gradient flow."""
 
     def test_parity_with_numpy_path(self):
-        from sdfkit_tpu.registration.icp import register_points_jax
+        from sdfkit.registration.icp import register_points_jax
 
         rng = np.random.default_rng(4)
         pts = (rng.random((80, 3)) - 0.5).astype(np.float32)
@@ -171,7 +171,7 @@ class TestJaxIcp:
         import jax
         import jax.numpy as jnp
 
-        from sdfkit_tpu.registration.icp import register_points_jax
+        from sdfkit.registration.icp import register_points_jax
 
         rng = np.random.default_rng(5)
         pts = (rng.random((50, 3)) - 0.5).astype(np.float32)
@@ -224,10 +224,10 @@ class TestOutlierBranches:
     pinned (IterativeClosestPoint.cs:101-114). The fourth branch's C# comment
     quotes the ICP paper's "valley after the maximal peak" rule, but the
     reference CODE is `distMean + 0.5f + distStd` — no histogram exists, so
-    that constant formula IS exact parity (VERDICT r2 item 7)."""
+    that constant formula IS exact parity."""
 
     def test_all_four_branches(self):
-        from sdfkit_tpu.registration.icp import robust_distance_cutoff
+        from sdfkit.registration.icp import robust_distance_cutoff
 
         good = 0.01
         # branch 1: mean < good -> mean + 3 std
@@ -244,7 +244,7 @@ class TestOutlierBranches:
         # cluster at ~0.2, far cluster at ~2.0 (mean ~0.65 > 6*good). The
         # reference formula keeps a point iff dist <= mean + 0.5 + std; pin
         # which side of the cutoff each cluster falls on.
-        from sdfkit_tpu.registration.icp import robust_distance_cutoff
+        from sdfkit.registration.icp import robust_distance_cutoff
 
         dist = np.concatenate([np.full(75, 0.2), np.full(25, 2.0)])
         mean, std = dist.mean(), dist.std()
@@ -264,8 +264,8 @@ class TestOutlierBranches:
 
 
 class TestFastPathDefault:
-    """register_points routes through the one-dispatch jit'd scan by default
-    (VERDICT r2 item 9); parity=True keeps the reference-mirroring numpy
+    """register_points routes through the one-dispatch jit'd scan by default;
+    parity=True keeps the reference-mirroring numpy
     loop; modified thresholds force the numpy path."""
 
     def test_default_matches_parity(self):
@@ -304,7 +304,7 @@ class TestGridNN:
     queries repaired by brute force."""
 
     def test_identical_to_brute_force_uniform(self):
-        from sdfkit_tpu.registration.icp import (
+        from sdfkit.registration.icp import (
             GridNN, nearest_neighbors,
         )
 
@@ -321,7 +321,7 @@ class TestGridNN:
         np.testing.assert_allclose(gd, np.asarray(bd), rtol=2e-7)
 
     def test_identical_on_clustered_and_outlier_queries(self):
-        from sdfkit_tpu.registration.icp import (
+        from sdfkit.registration.icp import (
             GridNN, nearest_neighbors,
         )
 
@@ -346,11 +346,11 @@ class TestGridNN:
         np.testing.assert_allclose(gd, np.asarray(bd), rtol=2e-7)
 
     def test_degenerate_clustering_declines(self):
-        from sdfkit_tpu.registration.icp import GridNN
+        from sdfkit.registration.icp import GridNN
 
         rng = np.random.default_rng(7)
         # Thousands of points in one bucket: the dense O(G^3 K Kq) layout
-        # must decline (callers then use the brute MXU kernel) — even with
+        # must decline (callers then use the brute matmul kernel) — even with
         # the bucket cap lifted, the memory guard holds.
         pts = np.concatenate([
             rng.normal(0, 0.01, (5000, 3)),
@@ -359,7 +359,7 @@ class TestGridNN:
         assert not GridNN(pts, max_bucket=10**6).ok
 
     def test_nearest_neighbors_class_routes_large_sets(self):
-        from sdfkit_tpu.registration.icp import NearestNeighbors
+        from sdfkit.registration.icp import NearestNeighbors
 
         rng = np.random.default_rng(5)
         pts = rng.uniform(-1, 1, (4000, 3)).astype(np.float32)
@@ -372,7 +372,7 @@ class TestGridNN:
         np.testing.assert_allclose(bdist, gdist, rtol=2e-7)
 
     def test_icp_registration_matches_brute_on_fixture(self):
-        from sdfkit_tpu.registration.icp import IterativeClosestPoint
+        from sdfkit.registration.icp import IterativeClosestPoint
 
         rng = np.random.default_rng(6)
         static = rng.uniform(-1, 1, (6000, 3)).astype(np.float32)
@@ -397,7 +397,7 @@ class TestGridNN:
 
 class TestGridScanIcp:
     """The grid-bucket NN running INSIDE the one-dispatch lax.scan ICP
-    (register_points_jax nn='grid'; VERDICT r4 item 3): same trajectory as
+    (register_points_jax nn='grid'): same trajectory as
     the brute scan and the host loop, differentiable, one dispatch."""
 
     def _fixture(self, n=4000, m=2000, seed=1):
@@ -413,7 +413,7 @@ class TestGridScanIcp:
         return static, moved
 
     def test_matches_brute_scan_exactly(self):
-        from sdfkit_tpu.registration.icp import register_points_jax
+        from sdfkit.registration.icp import register_points_jax
 
         static, moved = self._fixture()
         ab, tb = register_points_jax(static, moved, nn="brute")
@@ -428,7 +428,7 @@ class TestGridScanIcp:
         )
 
     def test_matches_host_loop(self):
-        from sdfkit_tpu.registration.icp import (
+        from sdfkit.registration.icp import (
             IterativeClosestPoint, register_points_jax)
 
         static, moved = self._fixture(seed=2)
@@ -439,7 +439,7 @@ class TestGridScanIcp:
         assert np.abs(np.asarray(ag) - static[:2000]).max() < 5e-3
 
     def test_gradient_flows_through_grid_scan(self):
-        from sdfkit_tpu.registration.icp import register_points_jax
+        from sdfkit.registration.icp import register_points_jax
 
         static, moved = self._fixture()
 
@@ -455,7 +455,7 @@ class TestGridScanIcp:
     def test_repair_cap_fallback_matches(self):
         # Force the full-brute cond branch by shrinking the repair cap: a
         # badly misaligned start makes most queries unguaranteed.
-        from sdfkit_tpu.registration import icp as icp_mod
+        from sdfkit.registration import icp as icp_mod
 
         static, moved = self._fixture(seed=3)
         moved = moved + np.float32(0.5)  # big offset: many unguaranteed
@@ -471,7 +471,7 @@ class TestGridScanIcp:
         np.testing.assert_allclose(np.asarray(t2), np.asarray(t1), atol=2e-5)
 
     def test_grid_mode_errors_on_degenerate_build(self):
-        from sdfkit_tpu.registration.icp import register_points_jax
+        from sdfkit.registration.icp import register_points_jax
 
         pts = np.zeros((3000, 3), np.float32)  # all in one bucket
         import pytest
@@ -482,7 +482,7 @@ class TestGridScanIcp:
 
 class TestGridNNEdgeCases:
     def test_single_query_and_duplicate_points(self):
-        from sdfkit_tpu.registration.icp import GridNN, nearest_neighbors
+        from sdfkit.registration.icp import GridNN, nearest_neighbors
 
         rng = np.random.default_rng(9)
         base = rng.random((3000, 3)).astype(np.float32)
@@ -498,7 +498,7 @@ class TestGridNNEdgeCases:
         assert int(gi[0]) == 250  # not the duplicate at 3250
 
     def test_all_queries_one_cell_overflow_repair(self):
-        from sdfkit_tpu.registration.icp import GridNN, nearest_neighbors
+        from sdfkit.registration.icp import GridNN, nearest_neighbors
 
         rng = np.random.default_rng(10)
         pts = rng.random((4000, 3)).astype(np.float32)

@@ -6,8 +6,8 @@ eyeballing artifacts).
 import numpy as np
 import pytest
 
-import sdfkit_tpu as sk
-from sdfkit_tpu.io.tga import read_tga, write_depth_tga, write_tga
+import sdfkit as sk
+from sdfkit.io.tga import read_tga, write_depth_tga, write_tga
 
 
 class TestTga:
@@ -49,7 +49,7 @@ class TestTga:
 
 class TestPng:
     def test_rgb_roundtrip(self, tmp_path):
-        from sdfkit_tpu.io.png import read_png, write_png
+        from sdfkit.io.png import read_png, write_png
 
         rng = np.random.default_rng(1)
         img = rng.uniform(0, 1, size=(9, 21, 3)).astype(np.float32)
@@ -60,7 +60,7 @@ class TestPng:
         np.testing.assert_allclose(back, img, atol=1.0 / 255.0)
 
     def test_grayscale_roundtrip(self, tmp_path):
-        from sdfkit_tpu.io.png import read_png, write_png
+        from sdfkit.io.png import read_png, write_png
 
         img = np.linspace(0, 1, 24, dtype=np.float32).reshape(4, 6)
         p = tmp_path / "gray.png"
@@ -70,7 +70,7 @@ class TestPng:
         np.testing.assert_allclose(back, img, atol=1.0 / 255.0)
 
     def test_depth_mapping_matches_tga(self, tmp_path):
-        from sdfkit_tpu.io.png import read_png, write_depth_png
+        from sdfkit.io.png import read_png, write_depth_png
 
         depth = np.array([[1.0, 50.0, 100.0, 1e6]], np.float32)
         p = tmp_path / "depth.png"
@@ -80,7 +80,7 @@ class TestPng:
         assert gray[0] > gray[1] > gray[2]
 
     def test_readable_by_pil(self, tmp_path):
-        from sdfkit_tpu.io.png import write_png
+        from sdfkit.io.png import write_png
 
         PIL = pytest.importorskip("PIL.Image")
         img = np.asarray(sk.render(sk.sphere(1.0), 16, 8))

@@ -7,7 +7,7 @@ whole pipeline.
 import numpy as np
 import pytest
 
-import sdfkit_tpu as sk
+import sdfkit as sk
 
 
 def mesh_of(expr, lo, hi, n, clip=True, **kw):

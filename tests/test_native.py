@@ -1,4 +1,4 @@
-"""The C++ host kernels (sdfkit_tpu/native/sparse_phase.cc) vs their numpy
+"""The C++ host kernels (sdfkit/native/sparse_phase.cc) vs their numpy
 references. Welding must be BITWISE identical (it decides vertex identity and
 ordering, hence golden vertex counts); gradient accumulation must agree to
 float tolerance (the C++ single pass and numpy's multiplicity-compressed
@@ -9,9 +9,9 @@ import os
 import numpy as np
 import pytest
 
-from sdfkit_tpu import native
-from sdfkit_tpu.mesh import luts
-from sdfkit_tpu.mesh.marching_cubes import FLT_EPSILON, _corner_gradients
+from sdfkit import native
+from sdfkit.mesh import luts
+from sdfkit.mesh.marching_cubes import FLT_EPSILON, _corner_gradients
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="no C++ toolchain"
@@ -79,21 +79,21 @@ class TestGradEdges:
 
 def test_mesh_native_vs_numpy_path():
     """End to end on the SAME voxels: to_mesh with the C++ kernels vs the
-    numpy fallback (SDFKIT_TPU_NO_NATIVE=1). Vertex identity, order, counts,
+    numpy fallback (SDFKIT_NO_NATIVE=1). Vertex identity, order, counts,
     positions and colors identical (welding is bitwise-equal and everything
     downstream of it is shared code); normals allclose (the C++ single pass
     and numpy's multiplicity-compressed accumulation round differently)."""
-    import sdfkit_tpu as sk
+    import sdfkit as sk
 
     v = sk.voxelize(sk.sphere(0.5), (-1.0,) * 3, (1.0,) * 3, 32, 32, 32)
     m = v.to_mesh()
     assert len(m.vertices) == 1248  # golden via the native path
 
-    os.environ["SDFKIT_TPU_NO_NATIVE"] = "1"
+    os.environ["SDFKIT_NO_NATIVE"] = "1"
     try:
         m_np = v.to_mesh()
     finally:
-        del os.environ["SDFKIT_TPU_NO_NATIVE"]
+        del os.environ["SDFKIT_NO_NATIVE"]
     np.testing.assert_array_equal(m.vertices, m_np.vertices)
     np.testing.assert_array_equal(m.triangles, m_np.triangles)
     np.testing.assert_array_equal(m.colors, m_np.colors)
@@ -108,15 +108,15 @@ class TestMcSparseFull:
     float tolerance (accumulation order differs)."""
 
     def _compare(self, scene, n, lo=-1.5, hi=1.5):
-        import sdfkit_tpu as sk
-        from sdfkit_tpu.mesh import marching_cubes as mc
+        import sdfkit as sk
+        from sdfkit.mesh import marching_cubes as mc
 
         v = sk.voxelize(scene, (lo,) * 3, (hi,) * 3, n, n, n)
-        os.environ["SDFKIT_TPU_NO_NATIVE"] = "1"
+        os.environ["SDFKIT_NO_NATIVE"] = "1"
         try:
             m_np = mc.create_mesh(v)
         finally:
-            del os.environ["SDFKIT_TPU_NO_NATIVE"]
+            del os.environ["SDFKIT_NO_NATIVE"]
         m_cc = mc.create_mesh(v)
         np.testing.assert_array_equal(m_np.vertices, m_cc.vertices)
         np.testing.assert_array_equal(m_np.triangles, m_cc.triangles)
@@ -129,13 +129,13 @@ class TestMcSparseFull:
         return m_cc
 
     def test_sphere_small(self):
-        import sdfkit_tpu as sk
+        import sdfkit as sk
 
         m = self._compare(sk.sphere(1.0), 5)
         assert len(m.vertices) == 54  # reference golden
 
     def test_csg_color_scene(self):
-        import sdfkit_tpu as sk
+        import sdfkit as sk
 
         scene = sk.sphere(1.0, color=(1.0, 0.2, 0.1)) | sk.box(
             (0.4, 0.9, 0.6), color=(0.1, 0.9, 0.2)
@@ -143,7 +143,7 @@ class TestMcSparseFull:
         self._compare(scene, 33)
 
     def test_torus_union(self):
-        import sdfkit_tpu as sk
+        import sdfkit as sk
 
         scene = sk.torus(0.9, 0.35) | sk.sphere(0.5).translate(
             (0.0, 0.0, 0.8)
@@ -158,8 +158,8 @@ class TestSequentialBaseline:
     in bench.py, so its work has to be the same surface."""
 
     def test_counts_match_create_mesh(self):
-        import sdfkit_tpu as sk
-        from sdfkit_tpu.mesh import marching_cubes as mc
+        import sdfkit as sk
+        from sdfkit.mesh import marching_cubes as mc
 
         v = sk.voxelize(sk.sphere(0.5), (-1.0,) * 3, (1.0,) * 3, 32, 32, 32)
         m = mc.create_mesh(v)
@@ -170,8 +170,8 @@ class TestSequentialBaseline:
         assert stream_len == len(m.triangles)
 
     def test_counts_match_no_colors(self):
-        import sdfkit_tpu as sk
-        from sdfkit_tpu.mesh import marching_cubes as mc
+        import sdfkit as sk
+        from sdfkit.mesh import marching_cubes as mc
 
         v = sk.voxelize(
             sk.torus(0.9, 0.35), (-1.5,) * 3, (1.5,) * 3, 24, 24, 24
@@ -189,8 +189,8 @@ def test_native_path_actually_taken():
     McSparse.geometry() return None (falsy), so every mesh quietly took the
     numpy path while all parity tests still passed (both sides were numpy).
     The phase timings name which path ran — pin it."""
-    import sdfkit_tpu as sk
-    from sdfkit_tpu.mesh import marching_cubes as mc
+    import sdfkit as sk
+    from sdfkit.mesh import marching_cubes as mc
 
     v = sk.voxelize(sk.sphere(0.5), (-1.0,) * 3, (1.0,) * 3, 24, 24, 24)
     mc.create_mesh(v)
@@ -202,8 +202,8 @@ def test_mc_sparse_geometry_rejects_mismatched_points():
     """The C++ phase-B entry must refuse (return False) when the point-value
     count disagrees with its bitmap rank — the host/device-inconsistency
     guard that triggers the numpy fallback in create_mesh."""
-    import sdfkit_tpu as sk
-    from sdfkit_tpu.mesh import luts
+    import sdfkit as sk
+    from sdfkit.mesh import luts
 
     v = sk.voxelize(sk.sphere(0.5), (-1.0,) * 3, (1.0,) * 3, 12, 12, 12)
     vals = np.asarray(v.values)
@@ -236,8 +236,8 @@ def test_mc_sparse_chunked_pvals_guards():
     (expected_points_below) must match a direct popcount of the host
     corner bitmap — these are what _sparse_phase_native verifies before
     touching partial buffers."""
-    import sdfkit_tpu as sk
-    from sdfkit_tpu.mesh import luts
+    import sdfkit as sk
+    from sdfkit.mesh import luts
 
     v = sk.voxelize(sk.sphere(0.5), (-1.0,) * 3, (1.0,) * 3, 12, 12, 12)
     vals = np.asarray(v.values)
@@ -289,7 +289,7 @@ def test_threaded_geometry_matches_direct():
     auto rule picks exactly ONE per machine (by core count), so this forces
     each in turn via the worker-count override; without it the threaded
     path would never run under the suite on small hosts."""
-    import sdfkit_tpu as sk
+    import sdfkit as sk
 
     s = sk.sphere(0.8).union(sk.torus(0.6, 0.25))
     vox = sk.voxelize(s, (-1.2,) * 3, (1.2,) * 3, 64, 64, 64)
@@ -317,16 +317,16 @@ def test_four_chunk_pipeline_with_step_and_iso():
     4-chunk path at step 2."""
     import os
 
-    import sdfkit_tpu as sk
+    import sdfkit as sk
 
     s = sk.sphere(0.9).union(sk.box(0.5))
     vox = sk.voxelize(s, (-1.3,) * 3, (1.3,) * 3, 200, 64, 200)
     m_nat = vox.to_mesh(iso_value=0.05, step=2)
-    os.environ["SDFKIT_TPU_NO_NATIVE"] = "1"
+    os.environ["SDFKIT_NO_NATIVE"] = "1"
     try:
         m_np = vox.to_mesh(iso_value=0.05, step=2)
     finally:
-        del os.environ["SDFKIT_TPU_NO_NATIVE"]
+        del os.environ["SDFKIT_NO_NATIVE"]
     assert len(m_nat.vertices) > 500
     np.testing.assert_array_equal(m_nat.vertices, m_np.vertices)
     np.testing.assert_array_equal(m_nat.triangles, m_np.triangles)

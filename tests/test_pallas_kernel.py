@@ -1,4 +1,5 @@
-"""Fused Pallas sphere-trace kernel parity tests (interpret mode on CPU).
+"""Fused sphere-trace kernel parity tests (the Triton-route kernels run in
+the Pallas interpreter on CPU: backend='interpret').
 
 The fused kernel must match the jnp reference path: depth to within the fp
 drift of two separately-compiled 40-step marches (XLA's shape-dependent FMA
@@ -12,8 +13,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import sdfkit_tpu as sk
-from sdfkit_tpu.utils.v3 import V3
+import sdfkit as sk
+from sdfkit.utils.v3 import V3
 
 W, H = 40, 24
 
@@ -26,13 +27,13 @@ class TestFusedParity:
     def test_depth_exact(self):
         s = scene()
         dj = np.asarray(sk.RayMarcher(W, H, s, backend="jnp").render_depth())
-        df = np.asarray(sk.RayMarcher(W, H, s, backend="fused").render_depth())
+        df = np.asarray(sk.RayMarcher(W, H, s, backend="interpret").render_depth())
         np.testing.assert_allclose(dj, df, rtol=1e-4)
 
     def test_rgb_close(self):
         s = scene()
         ij = np.asarray(sk.RayMarcher(W, H, s, backend="jnp").render())
-        iff = np.asarray(sk.RayMarcher(W, H, s, backend="fused").render())
+        iff = np.asarray(sk.RayMarcher(W, H, s, backend="interpret").render())
         # Hit pixels match to fp noise; silhouette pixels may differ slightly
         # through the normalize amplification.
         assert np.abs(ij - iff).max() < 2e-2
@@ -42,7 +43,7 @@ class TestFusedParity:
         # 17x13 = 221 rays exercises the padding path.
         s = scene()
         dj = np.asarray(sk.RayMarcher(17, 13, s, backend="jnp").render_depth())
-        df = np.asarray(sk.RayMarcher(17, 13, s, backend="fused").render_depth())
+        df = np.asarray(sk.RayMarcher(17, 13, s, backend="interpret").render_depth())
         np.testing.assert_allclose(dj, df, rtol=1e-4)
 
     def test_scene_with_cell_colors(self):
@@ -57,7 +58,7 @@ class TestFusedParity:
             ),
         )
         ij = np.asarray(sk.RayMarcher(W, H, s, backend="jnp").render())
-        iff = np.asarray(sk.RayMarcher(W, H, s, backend="fused").render())
+        iff = np.asarray(sk.RayMarcher(W, H, s, backend="interpret").render())
         assert np.median(np.abs(ij - iff)) < 1e-6
 
 
@@ -72,75 +73,63 @@ def _union_tree(n: int):
 
 
 class TestFusedParamCap:
-    def test_vmem_param_path_matches_smem(self, monkeypatch):
-        # Trees past SMEM_PARAM_SCALARS stream their parameters through one
-        # packed VMEM block (VERDICT r3 item 5). Exercise that path by
-        # lowering the threshold so a small scene takes it: results must be
-        # bitwise what the SMEM path produces (same kernel math, only the
-        # parameter loads differ). Full-scale (1400-scalar) coverage runs
-        # on the real chip in bench/verify — interpret mode is pathological
-        # at that size on the 2-core CI host.
-        from sdfkit_tpu.render.pallas import raymarch_kernel as rk
-
+    def test_union_tree_matches_jnp(self):
+        # A multi-leaf tree: every leaf is packed into one parameter vector
+        # and rebuilt from scalar loads in the kernel (ScalarArray leaves).
         s = _union_tree(3)
-        d_smem = np.asarray(
-            sk.RayMarcher(16, 8, s, backend="fused").render_depth()
+        dj = np.asarray(sk.RayMarcher(16, 8, s, backend="jnp").render_depth())
+        df = np.asarray(
+            sk.RayMarcher(16, 8, s, backend="interpret").render_depth()
         )
-        img_smem = np.asarray(sk.RayMarcher(16, 8, s, backend="fused").render())
-        monkeypatch.setattr(rk, "SMEM_PARAM_SCALARS", 4)
-        jax.clear_caches()
-        try:
-            d_vmem = np.asarray(
-                sk.RayMarcher(16, 8, s, backend="fused").render_depth()
-            )
-            img_vmem = np.asarray(
-                sk.RayMarcher(16, 8, s, backend="fused").render()
-            )
-        finally:
-            jax.clear_caches()
-        np.testing.assert_array_equal(d_smem, d_vmem)
-        np.testing.assert_array_equal(img_smem, img_vmem)
+        np.testing.assert_allclose(dj, df, rtol=1e-4)
+        ij = np.asarray(sk.RayMarcher(16, 8, s, backend="jnp").render())
+        iff = np.asarray(sk.RayMarcher(16, 8, s, backend="interpret").render())
+        assert np.median(np.abs(ij - iff)) < 1e-6
 
-    def test_vmem_param_path_grads_match(self, monkeypatch):
-        # jax.grad through the fused kernels on the VMEM parameter path
-        # (including the vector gradient accumulator in the backward).
-        from sdfkit_tpu.render.pallas import raymarch_kernel as rk
-        from sdfkit_tpu.render.raymarch import RenderConfig
+    def test_union_tree_grads_match(self):
+        # jax.grad through both kernels for a multi-leaf tree: every leaf's
+        # cotangent comes back from its slot of the per-program partials.
+        # Depth loss: no finite-difference normals, so the two programs
+        # agree to reduction-order rounding.
+        from sdfkit.render.pallas import raymarch_kernel as rk
+        from sdfkit.render.raymarch import RenderConfig, render_depth_rays
+        from sdfkit.utils.camera import camera_rays
 
         s = _union_tree(3)
         cfg = RenderConfig(width=16, height=8)
         view = sk.look_at((0.0, 0.0, 5.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
 
-        def loss(s):
-            return jnp.sum(rk.render_image_fused(s, view, cfg))
+        def masked(d):
+            return jnp.sum(jnp.where(d < 50.0, d, 0.0))
 
-        g_smem = jax.grad(loss)(s)
-        monkeypatch.setattr(rk, "SMEM_PARAM_SCALARS", 4)
-        jax.clear_caches()
-        try:
-            g_vmem = jax.grad(loss)(s)
-        finally:
-            jax.clear_caches()
+        def loss_fused(s):
+            return masked(rk.render_depth_image_fused(s, view, cfg, True))
+
+        def loss_jnp(s):
+            ro, rd = camera_rays(16, 8, view, cfg.vfov_degrees, cfg.near,
+                                 cfg.far)
+            return masked(render_depth_rays(s, ro, rd, cfg))
+
         for a, b in zip(
-            jax.tree_util.tree_leaves(g_smem),
-            jax.tree_util.tree_leaves(g_vmem),
+            jax.tree_util.tree_leaves(jax.grad(loss_fused)(s)),
+            jax.tree_util.tree_leaves(jax.grad(loss_jnp)(s)),
         ):
             np.testing.assert_allclose(
-                np.asarray(a), np.asarray(b), rtol=1e-5, atol=1e-6
+                np.asarray(a), np.asarray(b), rtol=2e-3, atol=1e-4
             )
 
     def test_oversized_tree_raises_with_jnp_hint(self):
-        # Past MAX_FUSED_PARAM_SCALARS the fused backend still refuses
-        # (compile-time bound); the error must point at backend='jnp'.
+        # Past MAX_FUSED_PARAM_SCALARS the kernels refuse (register spills
+        # and compile time); the error must point at backend='jnp'.
         import pytest
 
-        from sdfkit_tpu.render.pallas import raymarch_kernel as rk
+        from sdfkit.render.pallas import raymarch_kernel as rk
 
         s = _union_tree((rk.MAX_FUSED_PARAM_SCALARS // 7) + 2)
         with pytest.raises(ValueError, match="backend='jnp'"):
-            sk.RayMarcher(8, 8, s, backend="fused").render_depth()
+            sk.RayMarcher(8, 8, s, backend="interpret").render_depth()
         # The jnp backend accepts the same tree (tiny frame + 2 iterations:
-        # tracing ~1200 nodes through a full march is pure test overhead).
+        # tracing a large tree through a full march is pure test overhead).
         d = np.asarray(
             sk.RayMarcher(4, 4, s, backend="jnp", depth_iterations=2)
             .render_depth()
@@ -155,7 +144,7 @@ class TestFusedGradients:
             return jnp.mean(sk.RayMarcher(16, 16, s, backend=backend).render() ** 2)
 
         gj = float(jax.grad(loss)(jnp.float32(1.0), "jnp"))
-        gf = float(jax.grad(loss)(jnp.float32(1.0), "fused"))
+        gf = float(jax.grad(loss)(jnp.float32(1.0), "interpret"))
         assert np.isfinite(gj) and np.isfinite(gf)
         assert abs(gj - gf) < 0.05 * max(abs(gj), 1e-3) + 1e-2
 
@@ -171,7 +160,7 @@ class TestFusedGradients:
             return jnp.mean(m.render(camera=v) ** 2)
 
         gj = np.asarray(jax.grad(loss)(view, "jnp"))
-        gf = np.asarray(jax.grad(loss)(view, "fused"))
+        gf = np.asarray(jax.grad(loss)(view, "interpret"))
         assert np.all(np.isfinite(gf))
         np.testing.assert_allclose(gj, gf, rtol=5e-2, atol=1e-3)
 
@@ -180,7 +169,7 @@ class TestFusedGradients:
         # autodiff must match finite differences tightly.
         def loss(c):
             s = sk.Sphere(jnp.float32(1.0), jnp.array([c, 0.3, 0.3]))
-            return jnp.mean(sk.RayMarcher(16, 16, s, backend="fused").render() ** 2)
+            return jnp.mean(sk.RayMarcher(16, 16, s, backend="interpret").render() ** 2)
 
         g = float(jax.grad(loss)(jnp.float32(0.8)))
         e = 1e-2
@@ -188,18 +177,18 @@ class TestFusedGradients:
         np.testing.assert_allclose(g, float(fd), rtol=1e-2)
 
     def test_all_leaf_grads_match_jnp_color_and_depth(self):
-        # The Pallas backward kernel (in-VMEM march replay + reverse sweep)
-        # must match jnp autodiff for EVERY pytree leaf of a multi-primitive
-        # scene, through both the RGB and the depth outputs, at a
-        # non-tile-aligned size. rtol covers f32 reduction-order drift
-        # between per-tile SMEM accumulation and XLA's reduction tree.
-        from sdfkit_tpu.render.raymarch import RenderConfig, render_rays
-        from sdfkit_tpu.render.raymarch import render_depth_rays
-        from sdfkit_tpu.render.pallas.raymarch_kernel import (
+        # The backward kernel (march replay + reverse sweep) must match jnp
+        # autodiff for EVERY pytree leaf of a multi-primitive scene, through
+        # both the RGB and the depth outputs, at a non-block-aligned size.
+        # rtol covers f32 reduction-order drift between the per-program
+        # partial sums and XLA's reduction tree.
+        from sdfkit.render.raymarch import RenderConfig, render_rays
+        from sdfkit.render.raymarch import render_depth_rays
+        from sdfkit.render.pallas.raymarch_kernel import (
             render_depth_image_fused,
             render_image_fused,
         )
-        from sdfkit_tpu.utils.camera import camera_rays
+        from sdfkit.utils.camera import camera_rays
 
         s = sk.sphere(0.8, color=(0.9, 0.4, 0.2)) | sk.box(0.4).translate(
             1.0, 0.0, 0.0
@@ -208,7 +197,7 @@ class TestFusedGradients:
         cfg = RenderConfig(width=24, height=16)
 
         def loss_fused(s, v):
-            return jnp.sum(render_image_fused(s, v, cfg) ** 2)
+            return jnp.sum(render_image_fused(s, v, cfg, True) ** 2)
 
         def loss_jnp(s, v):
             ro, rd = camera_rays(
@@ -238,7 +227,7 @@ class TestFusedGradients:
         )
 
         def dloss_fused(s, v):
-            d = render_depth_image_fused(s, v, cfg)
+            d = render_depth_image_fused(s, v, cfg, True)
             return jnp.sum(jnp.where(d < 50.0, d, 0.0) ** 2)
 
         def dloss_jnp(s, v):
@@ -265,5 +254,5 @@ class TestIndexedPaletteFused:
         )
         s = sk.sphere(0.5).repeat_indexed("xy", (1.125, 1.125), table)
         ij = np.asarray(sk.RayMarcher(W, H, s, backend="jnp").render())
-        iff = np.asarray(sk.RayMarcher(W, H, s, backend="fused").render())
+        iff = np.asarray(sk.RayMarcher(W, H, s, backend="interpret").render())
         assert np.median(np.abs(ij - iff)) < 1e-6

@@ -17,8 +17,8 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-import sdfkit_tpu as sk
-from sdfkit_tpu.parallel.train import (
+import sdfkit as sk
+from sdfkit.parallel.train import (
     render_sharded,
     train_step_sharded,
     voxelize_sharded,
@@ -99,7 +99,7 @@ class TestMeshSharded:
         np.testing.assert_array_equal(a.triangles, b.triangles)
 
     def test_bit_identical_across_device_counts(self, mesh):
-        from sdfkit_tpu.parallel.marching import create_mesh_sharded
+        from sdfkit.parallel.marching import create_mesh_sharded
 
         s = scene()
         v = sk.voxelize(s, (-1.2, -1.2, -1.2), (1.2, 1.2, 1.2), 24, 24, 24)
@@ -113,7 +113,7 @@ class TestMeshSharded:
     def test_golden_sphere_count(self, mesh):
         # The reference golden: sphere r=0.5 in 32^3 => 1248 vertices
         # (Tests/SdfTests.cs:29-39) must survive brick seams and halos.
-        from sdfkit_tpu.parallel.marching import create_mesh_sharded
+        from sdfkit.parallel.marching import create_mesh_sharded
 
         v = sk.voxelize(sk.sphere(0.5), (-1, -1, -1), (1, 1, 1), 32, 32, 32)
         m = create_mesh_sharded(mesh, v)
@@ -122,7 +122,7 @@ class TestMeshSharded:
     def test_uneven_extent_and_step2(self, mesh):
         # nz=21 with step=2: bricks cover uneven cell counts and the last
         # brick needs the host-supplied tail halo.
-        from sdfkit_tpu.parallel.marching import create_mesh_sharded
+        from sdfkit.parallel.marching import create_mesh_sharded
 
         v = sk.voxelize(sk.sphere(2.0), (-2.5,) * 3, (2.5,) * 3, 21, 21, 21)
         m1 = v.to_mesh(step=2)
@@ -131,7 +131,7 @@ class TestMeshSharded:
         self._assert_same_mesh(m1, m8)
 
     def test_progress_and_empty(self, mesh):
-        from sdfkit_tpu.parallel.marching import create_mesh_sharded
+        from sdfkit.parallel.marching import create_mesh_sharded
 
         v = sk.voxelize(sk.sphere(0.1), (1, 1, 1), (2, 2, 2), 8, 8, 8)
         seen = []
@@ -179,7 +179,7 @@ class TestTrainStepSharded:
 class TestShardedPipeline:
     """scene -> voxelize_sharded -> create_mesh_sharded composes on ONE grid
     axis (z for both stages), so the multi-chip pipeline runs with no
-    implicit full-grid reshard between stages (VERDICT r2 item 6)."""
+    implicit full-grid reshard between stages."""
 
     def test_voxels_stay_z_sharded(self, mesh):
         v = voxelize_sharded(mesh, scene(), (-1, -1, -1), (1, 1, 1), 16, 16, 16)
@@ -192,7 +192,7 @@ class TestShardedPipeline:
         s = scene()
         v1 = sk.voxelize(s, (-1, -1, -1), (1, 1, 1), 24, 24, 24)
         m1 = v1.to_mesh()
-        from sdfkit_tpu.parallel.marching import create_mesh_sharded
+        from sdfkit.parallel.marching import create_mesh_sharded
 
         v8 = voxelize_sharded(mesh, s, (-1, -1, -1), (1, 1, 1), 24, 24, 24)
         np.testing.assert_array_equal(
@@ -206,8 +206,8 @@ class TestShardedPipeline:
 
 
 class TestFusedSharded:
-    """The fused Pallas kernel as the shard_map per-band renderer
-    (raymarch_kernel.render_rows_fused; interpret mode on the CPU backend).
+    """The fused kernel as the shard_map per-band renderer
+    (raymarch_kernel.render_rows_fused; backend='interpret' on the CPU).
     All comparisons use the module's standard cross-program tolerances:
     interpret-mode pallas_call is itself traced and XLA-compiled, so the
     sharded band program and the whole-frame program round differently
@@ -215,39 +215,39 @@ class TestFusedSharded:
     ulps — the same effect the jnp sharded tests document above."""
 
     def test_render_close_to_fused_single_device(self, mesh):
-        from sdfkit_tpu.render.raymarch import RayMarcher
+        from sdfkit.render.raymarch import RayMarcher
 
         s = scene()
-        img_1 = np.asarray(RayMarcher(32, 16, s, backend="fused").render())
-        img_f = np.asarray(render_sharded(mesh, s, 32, 16, backend="fused"))
+        img_1 = np.asarray(RayMarcher(32, 16, s, backend="interpret").render())
+        img_f = np.asarray(render_sharded(mesh, s, 32, 16, backend="interpret"))
         np.testing.assert_allclose(img_1, img_f, atol=2e-2)
 
     def test_render_close_to_jnp_backend(self, mesh):
         s = scene()
         img_j = np.asarray(render_sharded(mesh, s, 32, 16, backend="jnp"))
-        img_f = np.asarray(render_sharded(mesh, s, 32, 16, backend="fused"))
+        img_f = np.asarray(render_sharded(mesh, s, 32, 16, backend="interpret"))
         np.testing.assert_allclose(img_j, img_f, atol=2e-2)
 
     def test_depth_and_uneven_height(self, mesh):
-        from sdfkit_tpu.render.raymarch import RayMarcher
+        from sdfkit.render.raymarch import RayMarcher
 
         s = scene()
         d_1 = np.asarray(
-            RayMarcher(32, 15, s, backend="fused").render_depth()
+            RayMarcher(32, 15, s, backend="interpret").render_depth()
         )
         d_f = np.asarray(
-            render_sharded(mesh, s, 32, 15, depth_only=True, backend="fused")
+            render_sharded(mesh, s, 32, 15, depth_only=True, backend="interpret")
         )
         assert d_f.shape == (15, 32)
         np.testing.assert_allclose(d_1, d_f, rtol=1e-3)
 
     def test_train_step_matches_jnp_backend(self, mesh):
-        from sdfkit_tpu.parallel.train import train_step_sharded
+        from sdfkit.parallel.train import train_step_sharded
 
         s = scene()
         target = jnp.zeros((16, 32, 3), jnp.float32)
         s_j, l_j = train_step_sharded(mesh, s, target, backend="jnp")
-        s_f, l_f = train_step_sharded(mesh, s, target, backend="fused")
+        s_f, l_f = train_step_sharded(mesh, s, target, backend="interpret")
         np.testing.assert_allclose(float(l_j), float(l_f), rtol=1e-3)
         for a, b in zip(
             jax.tree_util.tree_leaves(s_j), jax.tree_util.tree_leaves(s_f)
@@ -257,24 +257,24 @@ class TestFusedSharded:
             )
 
     def test_fit_mesh_fused_runs(self, mesh):
-        import sdfkit_tpu as sk2
+        import sdfkit as sk2
 
         s = sk2.sphere(0.4, color=(0.8, 0.2, 0.2))
         target = np.asarray(sk2.render(sk2.sphere(0.55), 24, 16))
-        res = sk2.fit(s, target, steps=2, mesh=mesh, backend="fused")
+        res = sk2.fit(s, target, steps=2, mesh=mesh, backend="interpret")
         assert len(res.losses) == 2
         assert res.losses[1] <= res.losses[0] * 1.5  # moving, not exploding
 
     def test_elastic_tiles_fused_matches_fused_whole_frame(self, mesh,
                                                            tmp_path):
-        from sdfkit_tpu.parallel.elastic import render_tiles_resumable
-        from sdfkit_tpu.render.raymarch import RayMarcher
+        from sdfkit.parallel.elastic import render_tiles_resumable
+        from sdfkit.render.raymarch import RayMarcher
 
         s = scene()
-        img_1 = np.asarray(RayMarcher(32, 16, s, backend="fused").render())
+        img_1 = np.asarray(RayMarcher(32, 16, s, backend="interpret").render())
         img_f, stats = render_tiles_resumable(
             s, 32, 16, tmp_path / "f", tile_rows=8, mesh=mesh,
-            backend="fused",
+            backend="interpret",
         )
         assert stats["rendered"] == 2
         np.testing.assert_allclose(img_1, img_f, atol=2e-2)
@@ -287,17 +287,17 @@ class TestIndexedPaletteSharded:
         # scene tree does.
         import jax.numpy as jnp
 
-        from sdfkit_tpu.parallel.elastic import render_tiles_resumable
-        from sdfkit_tpu.render.raymarch import RayMarcher
+        from sdfkit.parallel.elastic import render_tiles_resumable
+        from sdfkit.render.raymarch import RayMarcher
 
         s = sk.sphere(0.5).repeat_indexed(
             "xy", (1.125, 1.125),
             jnp.asarray([[0.9, 0.2, 0.2], [0.2, 0.9, 0.2]]),
         )
-        img_1 = np.asarray(RayMarcher(32, 16, s, backend="fused").render())
+        img_1 = np.asarray(RayMarcher(32, 16, s, backend="interpret").render())
         img_f, stats = render_tiles_resumable(
             s, 32, 16, tmp_path / "pal", tile_rows=8, mesh=mesh,
-            backend="fused",
+            backend="interpret",
         )
         assert stats["rendered"] == 2
         np.testing.assert_allclose(img_1, img_f, atol=2e-2)

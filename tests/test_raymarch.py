@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import sdfkit_tpu as sk
-from sdfkit_tpu.utils.v3 import V3
+import sdfkit as sk
+from sdfkit.utils.v3 import V3
 
 W, H = 50, 30
 

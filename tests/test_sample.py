@@ -5,7 +5,7 @@ Tests/VolumeTests.cs batch-boundary tests and Tests/SdfTests.cs goldens).
 import jax.numpy as jnp
 import numpy as np
 
-import sdfkit_tpu as sk
+import sdfkit as sk
 
 
 def rng_points(n, seed=0):
@@ -33,7 +33,7 @@ class TestSample:
 
     def test_batch_shape_seen_by_sdf(self):
         # SDF-as-spy, lifted to trace time: under lax.map the SDF must be
-        # traced with exactly (batch_size,) components — the TPU analogue of
+        # traced with exactly (batch_size,) components — the device analogue of
         # VolumeTests' assertion that every batch has length 70
         # (VolumeTests.cs:109-135).
         seen = []

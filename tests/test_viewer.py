@@ -13,7 +13,7 @@ sys.path.insert(0, os.path.join(
 
 
 def test_live_viewer_frame_and_stats():
-    import sdfkit_tpu as sk
+    import sdfkit as sk
     import view
 
     viewer = view.LiveViewer(sk.sphere(1.0, color=(0.8, 0.3, 0.2)), 64, 48)

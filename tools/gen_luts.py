@@ -2,7 +2,7 @@
 reference's Luts.cs (pure data, originally from scikit-image's
 _marching_cubes_lewiner_luts.py) and emit them as a compact Python module.
 
-Usage: python tools/gen_luts.py > sdfkit_tpu/mesh/_luts_data.py
+Usage: python tools/gen_luts.py > sdfkit/mesh/_luts_data.py
 """
 
 import re

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
-"""Generate sdfkit_tpu/native/_mc_luts.h from sdfkit_tpu.mesh.luts.
+"""Generate sdfkit/native/_mc_luts.h from sdfkit.mesh.luts.
 
 The C++ host kernels (native/mc_host.cc) need the same MC33 lookup tables the
-Python sparse phase uses (sdfkit_tpu/mesh/luts.py, themselves generated from
+Python sparse phase uses (sdfkit/mesh/luts.py, themselves generated from
 the reference's constant data by tools/gen_luts.py — see the (b) unavoidable-
 similarity note there: pure constant data identical in any correct MC33).
 Emitting them from the in-repo luts module keeps the two implementations
@@ -20,7 +20,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from sdfkit_tpu.mesh import luts  # noqa: E402
+from sdfkit.mesh import luts  # noqa: E402
 
 TABLES = [
     # (C name, python name, C element type)
@@ -114,7 +114,7 @@ def emit_table(out, cname: str, arr: np.ndarray, ctype: str) -> None:
 def main() -> None:
     lines = [
         "// AUTO-GENERATED by tools/gen_luts_header.py — do not edit.",
-        "// MC33 lookup tables from sdfkit_tpu/mesh/luts.py (constant data,",
+        "// MC33 lookup tables from sdfkit/mesh/luts.py (constant data,",
         "// same tables as scikit-image/the reference; see luts.py header).",
         "#pragma once",
         "#include <cstdint>",
@@ -124,7 +124,7 @@ def main() -> None:
         arr = np.asarray(getattr(luts, pyname))
         emit_table(lines, cname, arr, ctype)
     path = os.path.join(
-        os.path.dirname(__file__), "..", "sdfkit_tpu", "native", "_mc_luts.h"
+        os.path.dirname(__file__), "..", "sdfkit", "native", "_mc_luts.h"
     )
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")

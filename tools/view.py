@@ -4,7 +4,7 @@ renders a scene to PNG (or TGA), optionally as an orbit turntable sequence.
 
 Usage:
     python tools/view.py [--scene sphere_repeat] [--size 960x540]
-                         [--out /tmp/view.png] [--orbit N]
+                         [--out view.png] [--orbit N]
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import numpy as np
 
 
 def scenes():
-    import sdfkit_tpu as sk
+    import sdfkit as sk
     from bench import sphere_repeat_scene
 
     return {
@@ -35,7 +35,7 @@ def scenes():
 
 def save(path, img: np.ndarray) -> None:
     if path.endswith(".tga"):
-        from sdfkit_tpu.io.tga import write_tga
+        from sdfkit.io.tga import write_tga
 
         write_tga(path, img)
         return
@@ -60,7 +60,7 @@ class LiveViewer:
     def __init__(self, scene, width: int, height: int, distance: float = 5.0):
         import threading
 
-        import sdfkit_tpu as sk
+        import sdfkit as sk
 
         self._sk = sk
         self.width, self.height, self.distance = width, height, distance
@@ -107,15 +107,15 @@ class LiveViewer:
         }
 
 
-_INDEX_HTML = """<!doctype html><title>sdfkit_tpu viewer</title>
+_INDEX_HTML = """<!doctype html><title>sdfkit viewer</title>
 <body style="margin:0;background:#111;color:#ddd;font:14px monospace">
-<div id=t style="padding:6px">sdfkit_tpu</div>
+<div id=t style="padding:6px">sdfkit</div>
 <img src="/stream" style="max-width:100%">
 <script>
 setInterval(async () => {
   const s = await (await fetch('/stats')).json();
   document.getElementById('t').textContent =
-    `sdfkit_tpu - frame ${s.frame} - ${s.render_ms} ms (${s.mrays_per_s} Mrays/s)`;
+    `sdfkit - frame ${s.frame} - ${s.render_ms} ms (${s.mrays_per_s} Mrays/s)`;
   document.title = `${s.render_ms} ms`;
 }, 500);
 </script>"""
@@ -165,7 +165,7 @@ def serve(viewer: LiveViewer, port: int = 0):
                     import time as _time
 
                     # A client that stalls without closing (or a wedged
-                    # tunnel) must not pin this thread rendering device
+                    # connection) must not pin this thread rendering device
                     # frames forever: time out the socket writes, and honor
                     # the server's shutdown flag (ThreadingHTTPServer's
                     # shutdown() does not interrupt in-flight handlers).
@@ -203,7 +203,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scene", default="sphere_repeat", choices=sorted(scenes()))
     ap.add_argument("--size", default="960x540")
-    ap.add_argument("--out", default="/tmp/sdfkit_view.png")
+    ap.add_argument("--out", default="sdfkit_view.png")
     ap.add_argument("--orbit", type=int, default=0, metavar="N",
                     help="render N frames orbiting the origin (out gets -000 suffixes)")
     ap.add_argument("--distance", type=float, default=5.0)
@@ -212,7 +212,10 @@ def main() -> int:
                          "http://127.0.0.1:PORT/ instead of writing files")
     args = ap.parse_args()
 
-    import sdfkit_tpu as sk
+    import sdfkit as sk
+    from sdfkit.utils.compile_cache import use_compile_cache
+
+    use_compile_cache()
 
     w, h = (int(v) for v in args.size.split("x"))
     scene = scenes()[args.scene]()
